@@ -1,14 +1,14 @@
-"""dbgphmm_tpu — TPU-native Bayesian genome assembly engine.
+"""dbgphmm_tpu — accelerator-native Bayesian genome assembly engine.
 
 A from-scratch reimplementation of the capabilities of ryought/dbgphmm
-(reference: /root/reference) designed TPU-first:
+designed around the accelerator:
 
 * Host Python owns graph topology, combinatorics and I/O (k-DBG construction,
   simple-path compaction, convex min-cost flow, Euler circuits, serialization).
 * The device (via JAX/XLA/Pallas) owns the hot kernel: batched log-space
   profile-HMM forward/backward dynamic programming over the DBG's sparse
   transition structure, evaluated for (many reads x many candidate copy-number
-  assignments), parallelized over a `jax.sharding.Mesh` of TPU chips.
+  assignments), parallelized over a `jax.sharding.Mesh` of GPUs.
 
 Layer map (mirrors reference SURVEY.md section 1):
   prob        -- log-space probability scalars            (ref: src/prob.rs)

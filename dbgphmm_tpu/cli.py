@@ -27,11 +27,9 @@ def _setup_jax(use_cpu: bool):
     if use_cpu:
         jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
-    except Exception:
-        pass
+    from .compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
 
 def _make_mesh_from_arg(spec):
@@ -533,15 +531,16 @@ def cmd_speed_test(args):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dbgphmm",
-        description="TPU-native Bayesian genome assembler (dbgphmm_tpu)",
+        description="Bayesian genome assembler on JAX (dbgphmm_tpu)",
     )
     p.add_argument("--cpu", action="store_true", help="force JAX CPU backend")
     p.add_argument(
         "--dist", default=None, metavar="ADDR:PORT,N,I",
         help="multi-host launch: jax.distributed coordinator address, total"
-             " process count, and this process's id (TPU pods can pass"
-             " ',,': all three auto-detect). Combine with --mesh to span"
-             " every host's devices; reads shard across hosts over DCN.",
+             " process count, and this process's id (under a cluster"
+             " scheduler JAX recognizes, such as SLURM, ',,' lets all three"
+             " auto-detect). Combine with --mesh to span every host's"
+             " devices; reads shard across hosts.",
     )
     p.add_argument(
         "--mesh", default=None, metavar="CxR",

@@ -1,6 +1,6 @@
 """Device kernels (JAX/XLA/Pallas) for the PHMM forward/backward DP.
 
-Design (TPU-first, cf. SURVEY.md section 7):
+Design (cf. SURVEY.md section 7):
 
 * The graph's transition structure is a padded gather table ``[n, D]``
   (D = max degree, 5 for DBGs) — the "sparse matvec" of one DP step is a
@@ -9,7 +9,7 @@ Design (TPU-first, cf. SURVEY.md section 7):
 * The scan over read positions is ``jax.lax.scan`` (the recursion is
   inherently serial in the position axis).
 * f32 tables with per-step renormalization (max-subtraction) + Kahan
-  compensated offset accumulation give TPU-friendly numerics; f64 without
+  compensated offset accumulation keep f32 exact enough; f64 without
   renormalization is used on CPU for parity oracles.
 """
 

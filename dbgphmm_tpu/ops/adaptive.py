@@ -32,10 +32,9 @@ def _pack_model(dm: DeviceModel) -> jnp.ndarray:
     """Pack all per-node model attributes into ONE [n, 2+5D] table so each
     scan step performs a single big-table gather.
 
-    Measured on the v5e backend: a [B, A]-indexed gather from an [n, *]
-    HBM table costs ~0.4-0.5 ms REGARDLESS of width, and the original step
-    issued six of them (parent/child idx+logt, init, emission) — the
-    dominant per-step cost of the evolving-frontier decode.  Columns:
+    A [B, A]-indexed gather from an [n, *] table costs about the same
+    whatever its width, so one packed gather replaces the six the step
+    would otherwise issue (parent/child idx+logt, init, emission).  Columns:
     [init_logp, emission, parent_logt*D, parent_idx*D, child_logt*D,
     child_idx*D, child_emission*D]; ids stored as floats (exact below 2^24).
     """
@@ -67,18 +66,6 @@ def _attr_cols(D: int):
 def _gather_attrs(pk: jnp.ndarray, nodes: jnp.ndarray) -> jnp.ndarray:
     """The per-step big gather: attrs [B, A, 2+5D] for an active set."""
     return pk[jnp.where(nodes >= 0, nodes, 0)]
-
-
-def _onehot_slot_dot(slots: jnp.ndarray, table: jnp.ndarray) -> jnp.ndarray:
-    """table[b, slots[b, k], :] via a one-hot MXU contraction (slot-space
-    take_along_axis is pathological on this backend: ~3.6 ms for [B, 384]).
-
-    slots [B, K] int32 (>= 0), table [B, A, C] -> [B, K, C]."""
-    A = table.shape[1]
-    oh = (slots[:, :, None] == jnp.arange(A, dtype=slots.dtype)[None, None, :])
-    return jax.lax.dot_general(
-        oh.astype(table.dtype), table, (((2,), (1,)), ((0,), (0,)))
-    )
 
 
 def _dedup_nodes(nodes: jnp.ndarray) -> jnp.ndarray:
@@ -130,15 +117,11 @@ def _next_active(dm: DeviceModel, st: SState, n_top: int,
     return _dedup_nodes(cand)
 
 
-_FIN_NEG = -1e30  # finite stand-in for -inf inside MXU contractions
-# (0 * -inf = nan would poison the one-hot dot)
-
-
 def _next_active_attrs(dm: DeviceModel, st: SState, attrs: jnp.ndarray,
                        n_top: int, max_ratio=None) -> jnp.ndarray:
     """`_next_active` reading the children of the top nodes from the carried
-    attribute block (one-hot MXU selection) instead of re-gathering the
-    child tables from HBM."""
+    attribute block (an exact slot gather) instead of re-gathering the child
+    tables from the [n]-row model arrays."""
     D = dm.parent_idx.shape[1]
     c = _attr_cols(D)
     merged = _ladd3(st.m, st.i, st.d)  # [B, A]
@@ -148,21 +131,12 @@ def _next_active_attrs(dm: DeviceModel, st: SState, attrs: jnp.ndarray,
         merged = jnp.where(merged >= mx - max_ratio, merged, NEG)
     k = min(n_top, merged.shape[1])
     top_vals, top_slots = jax.lax.top_k(merged, k)  # [B, k]
-    clogt = attrs[..., c["clogt"]]
-    ext = jnp.concatenate(
-        [
-            st.nodes.astype(attrs.dtype)[:, :, None],
-            jnp.where(jnp.isfinite(clogt), clogt, _FIN_NEG),
-            attrs[..., c["cidx"]],
-        ],
-        axis=2,
-    )  # [B, A, 1+2D]
-    sel = _onehot_slot_dot(top_slots, ext)  # [B, k, 1+2D]
-    top_nodes = sel[..., 0].astype(jnp.int32)
+    top_nodes = jnp.take_along_axis(st.nodes, top_slots, axis=1)
     top_nodes = jnp.where(jnp.isfinite(top_vals), top_nodes, -1)
-    child_logt = sel[..., 1 : 1 + D]
-    childs = sel[..., 1 + D :].astype(jnp.int32)
-    child_ok = (top_nodes[:, :, None] >= 0) & (child_logt > _FIN_NEG / 2)
+    sel = jnp.take_along_axis(attrs, top_slots[:, :, None], axis=1)
+    child_logt = sel[..., c["clogt"]]  # [B, k, D]
+    childs = sel[..., c["cidx"]].astype(jnp.int32)
+    child_ok = (top_nodes[:, :, None] >= 0) & jnp.isfinite(child_logt)
     childs = jnp.where(child_ok, childs, -1)
     cand = jnp.concatenate(
         [top_nodes, childs.reshape(childs.shape[0], -1)], axis=1
@@ -313,8 +287,8 @@ def forward_sparse_adaptive(
     (``store_bf16``).  Stored tables only feed the backward-by-forward
     S-table decode (active-set selection); the read log-likelihood comes
     from the carry and is unaffected.  [L,B,A]x16B -> [L,B,K]x10B lets the
-    read batch B grow ~2-5x against the same HBM, amortizing the ~0.5ms
-    per-scan-step backend floor (docs/PERF_NOTES round 3 bound analysis).
+    read batch B grow ~2-5x against the same device memory, amortizing the
+    fixed cost of each scan step over more reads.
     """
     from .forward import _f_init, _f_step
 

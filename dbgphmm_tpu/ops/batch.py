@@ -123,26 +123,18 @@ def _scores_vmapped_pos_log_slim(dm: DeviceModel, init_b, plogt_b,
 
 class XlaMappedScorer:
     """Device-resident XLA candidate scorer over precomputed positions — the
-    production fallback path when the Pallas packed kernel is unavailable.
+    plain reference for the GPU kernel and the scorer on every other
+    platform.
 
-    Two fixes over calling :func:`candidate_log_likelihoods` per chunk
-    (measured at the n4 k=41 operating point, B=97 reads, L=10k, A=96, D=3):
+    Two fixes over calling :func:`candidate_log_likelihoods` per chunk:
 
-    * the read/mapping/position streams (~1.7 GB at production widths) are
-      uploaded ONCE at construction instead of re-uploaded per 32-candidate
-      launch — the re-upload was both the dominant per-chunk cost (2.2
-      s/candidate) and the host-OOM driver (rc=137) of the first K=10k run
-      (23 launches x 1.7 GB of transient pinned host copies per scoring
-      batch);
+    * the read/mapping/position streams (~GB at production widths) are
+      uploaded ONCE at construction instead of re-uploaded per launch;
     * chunks score with the scaled-linear kernel
       (:func:`dbgphmm_tpu.ops.sparse.forward_scores_mapped_linear` — pure
       multiply-add per step, one log per read for the renorm offset) and
       only candidates with an underflowed read (forced across a copy-0 cut)
-      rescore with the log-space kernel, mirroring the Pallas scorer's
-      linear/log split.
-
-    Crash handling stays with the caller: :meth:`score_chunk` raises on a
-    worker fault so ``score_candidates`` can retry / isolate / dump.
+      rescore with the log-space kernel.
     """
 
     def __init__(self, template, positions, codes, lens, dtype=None,
@@ -156,16 +148,7 @@ class XlaMappedScorer:
         self._nb = self._db = None
         self.lens_np = np.asarray(lens)
         self.n_reads = len(self.lens_np)
-        # keep the construction recipe (references to the caller-owned
-        # arrays, no copies) so reset_device() can rebuild the device
-        # buffers after a backend revive (ADVICE r4: clear_backends()
-        # invalidates the uploaded buckets, so a post-revive retry through
-        # score_chunk would die on dead buffers)
-        self._recipe = (positions, np.asarray(codes), bucket)
-        self._build_buckets()
-
-    def _build_buckets(self):
-        positions, codes, bucket = self._recipe
+        codes = np.asarray(codes)
         mn = np.asarray(positions.map_nodes)
         pp = np.asarray(positions.prev_pos)
         cp = np.asarray(positions.cur_pos)
@@ -201,11 +184,6 @@ class XlaMappedScorer:
                 "sp": jnp.asarray(sp[rb, :Lb, :Ab]),
             })
 
-    def reset_device(self):
-        """Re-upload all device state after a backend revive."""
-        self._base = None
-        self._build_buckets()
-
     def _ensure_base(self, cn0):
         if self._base is not None:
             return
@@ -233,19 +211,13 @@ class XlaMappedScorer:
 
     def _run(self, fn, init_d, plogt_d, n_out: int) -> np.ndarray:
         """Run a vmapped kernel over every bucket -> per-read [n_out, B]."""
-        from .pallas_mapped import _launch_watchdog, _watchdog_seconds
-
         per_read = np.empty((n_out, self.n_reads), dtype=np.float64)
         for b in self.buckets:
-            # the platform fault's hang mode (docs/PERF_NOTES round 4) can
-            # wedge ANY long device call, not just packed launches — bound
-            # it so the supervisor sees a process exit, not a silent stall
-            with _launch_watchdog(_watchdog_seconds()):
-                out = np.asarray(
-                    fn(self._base, init_d, plogt_d, b["codes"], b["lens"],
-                       b["mn"], b["pp"], b["cp"], b["sp"]),
-                    dtype=np.float64,
-                )[:n_out]
+            out = np.asarray(
+                fn(self._base, init_d, plogt_d, b["codes"], b["lens"],
+                   b["mn"], b["pp"], b["cp"], b["sp"]),
+                dtype=np.float64,
+            )[:n_out]
             per_read[:, b["idx"]] = out
         return per_read
 
@@ -254,8 +226,7 @@ class XlaMappedScorer:
         return np.where(valid[None, :], per_read, 0.0).sum(axis=1)
 
     def score_chunk(self, chunk) -> np.ndarray:
-        """Total log P(R|X) for up to ``sub`` candidates; raises on worker
-        faults (caller owns the recovery ladder)."""
+        """Total log P(R|X) for up to ``sub`` candidates."""
         self._ensure_base(chunk[0])
         init_d, plogt_d = self._stack(chunk)
         per_read = self._run(
@@ -275,6 +246,35 @@ class XlaMappedScorer:
             )
             totals[idx] = self._totals(per_read)
         return totals
+
+    def scores(self, candidates) -> np.ndarray:
+        """Total log P(R|X_c) [C] f64, in fixed launches of ``sub``
+        candidates (one compiled shape; at most sub-1 padding slots)."""
+        return np.concatenate([
+            self.score_chunk(list(candidates[c0 : c0 + self.sub]))
+            for c0 in range(0, len(candidates), self.sub)
+        ])
+
+
+def make_candidate_scorer(template, positions, codes, lens, params,
+                          mesh=None, dtype=None):
+    """The candidate scorer for the platform JAX runs on.
+
+    * ``gpu``: :class:`~dbgphmm_tpu.ops.pallas_mapped.PallasMappedScorer`,
+      the full-scan Triton kernel (sharded over ``mesh`` when given);
+    * otherwise :class:`XlaMappedScorer`, the plain reference.  It has no
+      mesh form: with a mesh it returns None and the caller shards the
+      vmapped kernel itself (:func:`candidate_log_likelihoods`).
+
+    A failure to build or to launch propagates: there is no fallback."""
+    if jax.default_backend() == "gpu":
+        from .pallas_mapped import PallasMappedScorer
+
+        return PallasMappedScorer(template, positions, codes, lens, params,
+                                  mesh=mesh)
+    if mesh is not None:
+        return None
+    return XlaMappedScorer(template, positions, codes, lens, dtype=dtype)
 
 
 def _pad_reads_axis(arr: np.ndarray, m: int, fill):

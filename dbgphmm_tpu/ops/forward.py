@@ -12,7 +12,7 @@ propagation within one emission step (forward.rs:423-524).
 
 Renormalization: when ``renorm=True`` every step subtracts the per-read max
 of the M table and accumulates the offset with Kahan compensation, keeping
-f32 tables in range for arbitrarily long reads on TPU.
+f32 tables in range for arbitrarily long reads.
 """
 
 from __future__ import annotations
@@ -78,19 +78,22 @@ jax.tree_util.register_dataclass(
 
 def default_dtype():
     """f64 on CPU (exact; matches the reference's strict logaddexp numerics,
-    prob.rs:181-203), f32 on accelerator backends: TPU has no native f64 —
-    XLA emulates it in software at orders-of-magnitude cost (an f64 mapping
-    pass that takes seconds in f32 runs for minutes emulated) — and every
-    kernel here renormalizes per step so f32 holds arbitrarily long reads."""
+    prob.rs:181-203), f32 on accelerator backends: every kernel here
+    renormalizes per step so f32 holds arbitrarily long reads, and f32
+    halves the bytes each step moves.  The system's first accelerator had
+    no native f64; the GPU does, and what f64 would cost there has not
+    been measured."""
     import jax
 
     return jnp.float64 if jax.default_backend() == "cpu" else jnp.float32
 
 
 def bucketize(n: int, ratio: float = 1.2, align: int = 128) -> int:
-    """Round n up to a geometric bucket aligned to TPU lanes, so jitted
+    """Round n up to a geometric bucket (multiples of ``align``), so jitted
     kernels keep stable shapes as the graph grows across k (the
-    recompilation-discipline hard part, SURVEY.md section 7)."""
+    recompilation-discipline hard part, SURVEY.md section 7).  The 128
+    alignment comes from the first accelerator's lane width and is kept so
+    shapes, and so compiled programs, are unchanged."""
     b = align
     while b < n:
         b = max(b + align, int(-(-b * ratio // align) * align))

@@ -7,7 +7,7 @@ precomputed active set (the "mapping", A ~ 40 nodes); the per-step cost is
 O(B * A^2 * D) **independent of graph size n** — this is what makes k=10k
 graphs tractable (dense cost is O(B * n * D) with n ~ 1e5..1e6).
 
-TPU design: the sparse "which slot holds node v" lookup is a broadcast
+Device design: the sparse "which slot holds node v" lookup is a broadcast
 equality match between gathered parent indices [B, A, D] and the previous
 active set [B, A'] — a dense [B, A, D, A'] select+max that XLA fuses into
 VPU-friendly elementwise work, instead of the reference's SparseVec pointer

@@ -6,12 +6,13 @@ The reference's only parallelism is shared-memory rayon fan-out over reads
 job resubmission (scripts/sim.sh:165-182).  Here the same data parallelism
 extends across hosts: every process holds the (small) graph replicated,
 loads its contiguous slice of the read collection, and the per-read
-log-likelihood sum rides XLA's cross-host psum over DCN — the only
+log-likelihood sum rides XLA's cross-host psum — the only
 cross-device reduction the algorithm needs (BASELINE.json north star:
 >=80% reads/s scaling from 1 chip to >=2 hosts).
 
-Launch recipe (one command per host; CPU smoke shown, TPU pods omit the
-explicit addresses because jax.distributed auto-detects them):
+Launch recipe (one command per host; CPU smoke shown; under a cluster
+scheduler jax.distributed recognizes, such as SLURM, the explicit
+addresses can be omitted):
 
     # host 0
     python -m dbgphmm_tpu --dist localhost:12345,2,0 sample ...
@@ -36,9 +37,10 @@ def initialize(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """Initialize jax.distributed.  On TPU pods all arguments auto-detect;
-    on CPU/GPU pass coordinator host:port, process count, and this
-    process's id.  Must run before any other jax call."""
+    """Initialize jax.distributed.  Pass coordinator host:port, process
+    count, and this process's id; all three may be None under a cluster
+    scheduler jax.distributed detects.  Must run before any other jax
+    call."""
     import jax
 
     try:

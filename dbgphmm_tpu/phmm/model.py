@@ -1,7 +1,7 @@
 """PHMM model as flat arrays ready for device kernels.
 
 Counterpart of the reference's ``PHMMModel<N, E>`` graph-of-structs
-(ref: src/hmmv2/common.rs:59-183), redesigned TPU-first: instead of iterating
+(ref: src/hmmv2/common.rs:59-183), redesigned for the device: instead of iterating
 petgraph adjacency per node, the transition structure is materialized as a
 padded dense gather table ``[n_nodes, max_deg]`` of parent/child indices and
 log transition probabilities.  Degree is bounded (5 in the DBG case,

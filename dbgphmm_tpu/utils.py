@@ -76,7 +76,7 @@ def edit_distance(a: bytes, b: bytes, band: int = 0) -> int:
 
 @contextlib.contextmanager
 def jax_profile(path: str):
-    """Capture a jax profiler trace around a block (TPU perf analysis)."""
+    """Capture a jax profiler trace around a block (device performance analysis)."""
     import jax
 
     jax.profiler.start_trace(path)

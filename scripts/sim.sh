@@ -80,9 +80,8 @@ run_dbgphmm() {  # ref: sim.sh:152-163
   local PRE="$DIR/pz${pz}_pi${p}"
   # Supervisor loop (failure-recovery, SURVEY §5: the reference's recovery
   # story is file-granular restart via qsub resubmission + --dbg/--map
-  # inputs, bin/infer.rs:44-48).  A TPU worker crash kills the process; we
-  # restart from the deepest per-k checkpoint.  Attempt 0 uses the packed
-  # Pallas scorer; every retry pins the XLA kernel (DBGPHMM_PALLAS=0).
+  # inputs, bin/infer.rs:44-48).  A failed process is restarted from the
+  # deepest per-k checkpoint.
   local attempt=0
   while :; do
     local ARGS=( sim-infer "$KEY/data.json" -o "$PRE" -K "$K" \
@@ -95,14 +94,8 @@ run_dbgphmm() {  # ref: sim.sh:152-163
     else
       ARGS+=( -d "$KEY/data.dbg" )
     fi
-    # No scorer pinning: the round-5 fixes (single-vreg gathers, VMEM
-    # back-off, watchdog hard-exit) make the packed kernel self-healing,
-    # and the in-process ladder already degrades to the XLA scorer per
-    # stage when a launch faults.  DBGPHMM_PALLAS=0 remains available as a
-    # manual override.
-    # Stall watchdog (round 5): device calls are SIGALRM-bounded inside the
-    # process, but a HOST-side wedge (seen once at k=69: ~50% CPU, no log
-    # line for 20+ min) stalls the run silently.  Run the worker in the
+    # Stall watchdog: a HOST-side wedge (seen once at k=69: ~50% CPU, no
+    # log line for 20+ min) stalls the run silently.  Run the worker in the
     # background, watch the log for progress, and on DBGPHMM_STALL_S of
     # silence dump its stacks (SIGUSR1 -> faulthandler) and restart it.
     $PY -m dbgphmm_tpu "${ARGS[@]}" >> "$DIR/log" 2>&1 &
@@ -153,8 +146,7 @@ run_n4() {  # ref: sim.sh:184-214 (U=10000 N=4 E=2000 P=2, C=10 L=10000)
 run_kir() {  # ref: scripts/kir/run.sh:22-24 — KIR-class scale: G=360kb,
   # HiFi p=0.0003, 10-20x, K_MAX=20,000.  Synthetic stand-in (the real KIR
   # haplotypes are not in this image): 8x20kb tandem units + 2kb unique
-  # ends, diploid 1% divergence, C=15 (docs/PERF_NOTES round 3 capacity
-  # study used the same config).
+  # ends, diploid 1% divergence, C=15.
   local KEY=$1 H=${2:-0.01} H0=${3:-0.0002} p=0.0003 K=${4:-20000}
   mkdir -p "$KEY"
   DBG sim-draft -k 40 -C 15 -L 10000 -p "$p" --fragment \

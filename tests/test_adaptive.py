@@ -289,3 +289,35 @@ def test_compact_stored_decode_matches_full_storage():
     for b, L in enumerate(lens):
         agree = np.mean(mn_f[b, :L, 0] == mn_c[b, :L, 0])
         assert agree > 0.99, (b, agree)
+
+
+def test_next_active_slot_selection_exact_above_2048():
+    """The frontier step reads the top nodes' children from the carried f32
+    attribute block by slot; the selection must be exact for node ids far
+    above 2048 (a TF32 matrix product keeps 10 mantissa bits and would
+    return neighbouring ids there)."""
+    from dbgphmm_tpu.ops.adaptive import (
+        _gather_attrs,
+        _next_active,
+        _next_active_attrs,
+        _pack_model,
+    )
+    from dbgphmm_tpu.ops.sparse import SState
+
+    m = linear_random_phmm(6000, 0, PHMMParams.default())
+    dm = to_device(m, dtype=jnp.float32)
+    rng = np.random.default_rng(0)
+    B, A = 3, 24
+    nodes = rng.choice(np.arange(2049, 5999), size=(B, A), replace=False)
+    nodes[:, -2:] = -1  # empty slots
+    vals = jnp.asarray(rng.normal(size=(B, A)), dtype=jnp.float32)
+    st = SState(
+        nodes=jnp.asarray(nodes, dtype=jnp.int32), m=vals, i=vals - 1.0,
+        d=vals - 2.0, mb=jnp.zeros(B), ib=jnp.zeros(B), e=jnp.zeros(B),
+        off=jnp.zeros(B), off_c=jnp.zeros(B),
+    )
+    attrs = _gather_attrs(_pack_model(dm), st.nodes)
+    got = np.asarray(_next_active_attrs(dm, st, attrs, n_top=8))
+    want = np.asarray(_next_active(dm, st, n_top=8))
+    np.testing.assert_array_equal(got, want)
+    assert (got[got >= 0] > 2048).all()

@@ -1,7 +1,7 @@
 """f32 call-invariance audit (VERDICT r1 item 8; ref: src/prob.rs:181-203
 "bit-identical" north star).
 
-The TPU path runs the DP in f32 with per-step renormalization + Kahan offset
+The accelerator path runs the DP in f32 with per-step renormalization + Kahan offset
 tracking; the reference computes strict-logaddexp f64.  The *decisions* the
 framework makes are argmax copy-number calls per k — this audit runs one
 full small-genome inference at f64 and at f32 (both CPU) and asserts the

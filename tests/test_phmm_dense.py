@@ -108,7 +108,7 @@ def test_forward_equals_backward():
 
 
 def test_renorm_matches_no_renorm():
-    """f64 renormalized scan == plain scan to 1e-9 (oracle for the TPU f32
+    """f64 renormalized scan == plain scan to 1e-9 (oracle for the accelerator f32
     path's renormalization logic)."""
     dm = to_device(
         linear_random_phmm(100, 0, PHMMParams.default()), dtype=jnp.float64
